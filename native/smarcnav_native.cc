@@ -1,6 +1,6 @@
 // smarcnav_native: host-side native kernels for smarc_navigation_tpu.
 //
-// The reference keeps its runtime in C++ ROS nodes; in the TPU rebuild the
+// The reference keeps its runtime in C++ ROS nodes; in this rebuild the
 // compute path is XLA, and the host runtime work that remains — exact
 // linear assignment for SLAM data association (the role of the vendored
 // Munkres solver, auv_ekf_slam/utils/munkres/) and timeline binning of

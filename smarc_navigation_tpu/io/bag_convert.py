@@ -139,7 +139,7 @@ def convert(bag_path: str, out_path: str, topic_roles: Dict[str, str]) -> dict:
     except ImportError as e:
         raise RuntimeError(
             "rosbag is not installed — run this converter on a ROS host "
-            "(it is intentionally not a dependency of the TPU package)"
+            "(it is intentionally not a dependency of the JAX package)"
         ) from e
     from .logs import save_log
 

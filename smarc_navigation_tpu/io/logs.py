@@ -4,7 +4,7 @@ The reference validates filters by replaying recorded rosbags
 (``auv_ekf_localization/rosbags/rosbag_handler.py:7-49``; record hooks in
 ``auv_ekf_localization/launch/ekf_localization.launch:44-46`` and
 ``auv_ekf_slam/launch/ekf_slam.launch:47-48``). This module defines the
-equivalent recorded-mission format for the TPU rebuild:
+equivalent recorded-mission format for the JAX rebuild:
 
 **Log schema** — one ``.npz`` file holding stamped streams:
 

@@ -7,7 +7,7 @@ angular velocity, linear acceleration) configured purely through YAML/launch
 ``params/ekf_sam.yaml``): a *local* filter fusing depth pose + DVL twist +
 SBG yaw/yaw-rate + STIM roll/pitch/rates with a thrust-derived control
 input, and a *global* filter adding GPS x/y. This module is that estimator
-family rebuilt TPU-first:
+family rebuilt for XLA:
 
 * the omega-kinematics transition runs as a pure function and its 15×15
   Jacobian comes from ``jax.jacfwd`` (robot_localization hand-derives it),
@@ -379,11 +379,14 @@ def ekf15_timeline(mission, cfg: Ekf15Config, include_gps: bool = False) -> Time
 
 
 def run_fleet(batched_timeline, cfg: Ekf15Config = Ekf15Config(), x0=None):
-    """Fleet replay through the missions-in-lanes Pallas kernel
-    (``ops.ekf15_kernels.run_fleet15``); see there for the layout."""
-    from ..ops import ekf15_kernels
-
-    return ekf15_kernels.run_fleet15(batched_timeline, cfg, x0=x0)
+    """Fleet replay: ``run`` vmapped over the missions of a batched timeline
+    (leaves (B, T, ...), as from ``fleet.batch_timelines`` of
+    ``ekf15_timeline`` outputs). Returns (final Ekf15State with a leading
+    mission axis, out) with ``out`` time-major: x (T, B, 15),
+    p_diag (T, B, 15)."""
+    s0 = init_state(cfg, x0=x0)
+    final, out = jax.vmap(lambda tl: run(tl, cfg, s0))(batched_timeline)
+    return final, jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, 1), out)
 
 
 def run_dual_fleet(
@@ -394,11 +397,8 @@ def run_dual_fleet(
 ):
     """The DUAL-EKF pair (local odom-frame + global map-frame filter with
     the yaml tuning of ``dual_ekf_test.launch:102-345``) at fleet scale:
-    both filters of every mission run through the missions-in-lanes kernel
-    — two lanes-kernel scans (the two filters have distinct static sensor
-    wiring/noise, which the kernel folds in at trace time) plus the batched
-    per-tick map->odom corrections. Semantics match ``run_dual`` per
-    mission (pinned by tests/test_ekf15_kernels.py)."""
+    ``run_dual`` per mission, batched. Outputs are time-major like
+    ``run_fleet``'s; the map->odom corrections are (T, B)."""
     if cfg_global is None:
         cfg_global = global_config(frequency=cfg_local.frequency)
     final_l, out_l = run_fleet(batched_local, cfg_local)

@@ -1,6 +1,6 @@
 """6-DOF EKF localization against a known landmark map.
 
-TPU-native rebuild of ``auv_ekf_localization`` (SURVEY.md §2.1): the ROS
+JAX rebuild of ``auv_ekf_localization`` (SURVEY.md §2.1): the ROS
 timer tick (``src/ekf_localization.cpp:547-624``) becomes a pure step
 function folded over the mission timeline with ``lax.scan``.
 
@@ -276,121 +276,13 @@ def run_fleet(
     params: EKFLocParams,
     cfg: EKFLocConfig = EKFLocConfig(),
 ):
-    """Whole-fleet replay through the missions-in-lanes Pallas tick kernel
-    (``ops.loc_kernels``): per-op dispatch overhead (~8 us/op on this
-    backend) makes the vmapped-XLA tick cost ~3.6 ms regardless of fleet
-    width; the kernel runs the entire tick (predict + M greedy-ML updates)
-    as one Mosaic program with missions in the VPU lanes.
-
-    All per-tick scalar staging (IMU rpy, DVL staleness/Bezier, dt from the
-    have-contact history, stone offset) is vectorized over (B, T) before the
-    scan; the scan body is exactly one pallas call on lane-major state.
-
-    Returns (final_state_batched, out) with out like ``run``'s but with a
-    leading mission axis: mu (T, B, 6), sigma_diag (T, B, 6),
-    matches (T, B, M), num_matched (T, B)."""
-    from ..ops import loc_kernels
-
-    tl = batched_timeline
-    B, T = tl.ticks.shape
-    f32 = jnp.float32
-    Bp = max(128, ((B + 127) // 128) * 128)
-
-    imu = tl.channels["imu"]
-    dvlw = tl.windows["dvl"]
-    det = tl.events["mbes_detections"]
-    M = det.value.shape[2]
-
-    # --- vectorized staging over (B, T) ------------------------------------
-    rpy_t = jax.vmap(jax.vmap(rpy_from_quat))(imu.value[..., 0:4])
-    newest = dvlw.stamp[..., -1]
-    stale = (tl.ticks - newest) > (0.5 / cfg.system_freq)
-    v_b = jax.vmap(jax.vmap(bezier.bezier_interpolate))(
-        dvlw.value, dvlw.stamp, tl.ticks)
-    v = jnp.where(stale[..., None], v_b, dvlw.value[..., -1, :])
-    have = imu.valid & (dvlw.count > 0)
-
-    lf = jax.lax.associative_scan(
-        jnp.maximum, jnp.where(have, tl.ticks, 0.0), axis=1)
-    t_prev = jnp.concatenate(
-        [jnp.zeros((B, 1), tl.ticks.dtype), lf[:, :-1]], axis=1)
-    dt = jnp.maximum(tl.ticks - t_prev, 0.0)
-    disp_base = (v * dt[..., None]) @ params.r_base_dvl.T
-
-    z_all = det.value - jnp.asarray(
-        [0.0, cfg.stone_offset, cfg.stone_offset], det.value.dtype)
-
-    # --- lane-major per-tick inputs (T, rows, Bp) ---------------------------
-    def lanes_t(x, rows):  # (B, T, rows) -> (T, rows, Bp)
-        out = jnp.zeros((T, rows, Bp), f32)
-        return out.at[:, :, :B].set(jnp.moveaxis(x.astype(f32), 0, 2))
-
-    tick_in = jnp.concatenate(
-        [rpy_t, disp_base, have[..., None].astype(f32),
-         jnp.zeros_like(have[..., None], dtype=f32)], axis=2)
-    tick_in = lanes_t(tick_in, 8)
-    zmix = jnp.zeros((B, T, M, 8), f32)
-    zmix = zmix.at[..., 0:3].set(z_all.astype(f32))
-    zmix = zmix.at[..., 3].set(det.mask.astype(f32))
-    z_in = lanes_t(zmix.reshape(B, T, M * 8), M * 8)
-
-    s0 = init_state(cfg)
-    mu0 = jnp.zeros((8, Bp), f32).at[0:6, :B].set(s0.mu[:, None])
-    sig0 = jnp.zeros((36, Bp), f32).at[:, :B].set(
-        s0.Sigma.reshape(36)[:, None])
-
-    Np = ((params.map_pos.shape[0] + 7) // 8) * 8
-    map_in = jnp.zeros((Np, 8), f32)
-    map_in = map_in.at[:params.map_pos.shape[0], 0:3].set(
-        params.map_pos.astype(f32))
-    map_in = map_in.at[:params.map_mask.shape[0], 3].set(
-        params.map_mask.astype(f32))
-    par = jnp.zeros((1, 16), f32)
-    par = par.at[0, 0:3].set(jnp.diagonal(params.Q).astype(f32))
-    par = par.at[0, 3:9].set(jnp.diagonal(params.R).astype(f32))
-    par = par.at[0, 9].set(jnp.asarray(params.lambda_m, f32))
-    par = par.at[0, 10].set(jnp.asarray(cfg.epsilon, f32))
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    call = pl.pallas_call(
-        loc_kernels._make_tick_kernel(M, Np),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 5,
-        out_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-        out_shape=[
-            jax.ShapeDtypeStruct((8, Bp), f32),
-            jax.ShapeDtypeStruct((36, Bp), f32),
-            jax.ShapeDtypeStruct((M, Bp), f32),
-        ],
-    )
-
-    def body(carry, xs):
-        mu_l, sig_l = carry
-        t_in, zz = xs
-        mu_o, sig_o, match_o = call(par, t_in, zz, map_in, mu_l, sig_l)
-        return (mu_o, sig_o), (mu_o, sig_o, match_o)
-
-    (mu_f, sig_f), (mu_t, sig_t, match_t) = jax.lax.scan(
-        body, (mu0, sig0), (tick_in, z_in))
-
-    mu_out = jnp.moveaxis(mu_t[:, 0:6, :B], 1, 2)               # (T,B,6)
-    diag_ix = jnp.asarray([0, 7, 14, 21, 28, 35])
-    sigd_out = jnp.moveaxis(sig_t[:, diag_ix, :B], 1, 2)        # (T,B,6)
-    matches = jnp.moveaxis(match_t[:, :, :B], 1, 2).astype(jnp.int32)
-    out = {
-        "mu": mu_out,
-        "sigma_diag": sigd_out,
-        "matches": matches,
-        "num_matched": jnp.sum(matches >= 0, axis=2),
-    }
-    final = EKFLocState(
-        mu=mu_f[0:6, :B].T,
-        Sigma=sig_f[:, :B].T.reshape(B, 6, 6),
-        t_prev=lf[:, -1],
-    )
-    return final, out
+    """Fleet replay: ``run`` vmapped over the missions of a batched timeline
+    (leaves (B, T, ...)). Returns (final state with a leading mission axis,
+    out) with ``out`` time-major like ``run``'s scan over the fleet:
+    mu (T, B, 6), sigma_diag (T, B, 6), matches (T, B, M),
+    num_matched (T, B)."""
+    final, out = jax.vmap(lambda tl: run(tl, params, cfg))(batched_timeline)
+    return final, jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, 1), out)
 
 
 def loc_timeline(mission, cfg: EKFLocConfig = EKFLocConfig()) -> Timeline:

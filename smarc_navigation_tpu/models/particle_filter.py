@@ -1,14 +1,14 @@
 """GPS-weighted Monte-Carlo localization (particle filter).
 
-TPU-native rebuild of ``auv_particle_filter`` (SURVEY.md §2.1, call stack
-§3.4). The reference keeps 50 ``Particle`` python objects and loops over
-them per callback (``auv_pf.py:213-216``); here the bank is one (6, N)
-array — struct-of-arrays, state components in rows, particles along the
-TPU's 128-wide lane dimension (an (N, 6) layout would tile each row to
-(8, 128) and waste 95% of every HBM transaction) — the models are fused
-elementwise column math, and resampling is an on-device inverse-CDF. The
-same code runs 50 particles or 10 million, and shards over a device mesh
-(``parallel.fleet``).
+JAX rebuild of ``auv_particle_filter`` (SURVEY.md §2.1, call stack §3.4).
+The reference keeps 50 ``Particle`` python objects and loops over them per
+callback (``auv_pf.py:213-216``); here the bank is one (6, N) array —
+struct-of-arrays, state components in rows, particles contiguous along the
+last axis — the models are fused elementwise row math, and resampling is an
+on-device inverse-CDF. The same code runs 50 particles or 10 million, and
+shards over a device mesh (``parallel.fleet``). Noise is ``jax.random``
+threefry; with ``jax_threefry_partitionable`` (the JAX default) the draws
+do not depend on how the bank is sharded.
 
 Semantics preserved:
 
@@ -29,7 +29,6 @@ Semantics preserved:
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
 import jax
@@ -134,10 +133,9 @@ def motion_model_batch(
     """Vectorized motion step over the whole bank.
 
     Same math as ``motion_model`` but in (6, N) struct-of-arrays form:
-    pure fused elementwise row math on lane-aligned (N,) vectors. A vmapped
-    per-particle 3×3 matvec materializes an (N,3,3) rotation tensor and
-    contracts over a length-3 axis — hostile to the VPU's (8,128) lanes
-    (measured 1.8 ms/tick at 10^6 particles vs ~30 µs for this form)."""
+    pure fused elementwise row math on contiguous (N,) vectors, instead of
+    a vmapped per-particle 3×3 matvec that materializes an (N, 3, 3)
+    rotation tensor."""
     quat = odom[3:7]
     v = odom[7:10] * dt
     wz = odom[12]
@@ -166,8 +164,7 @@ def predict(state: PFState, odom: jnp.ndarray, dt, params: PFParams) -> PFState:
     key, sub = jax.random.split(state.key)
     n = state.particles.shape[1]
     # only x/y/yaw noise is ever consumed (z is substituted, roll/pitch are
-    # absolute — the reference draws 6 and discards 3; PRNG bits are the
-    # dominant per-tick cost at 10^6 particles, so draw only 3 rows)
+    # absolute — the reference draws 6 and discards 3), so draw only 3 rows
     sd = jnp.sqrt(params.motion_cov)
     n3 = jax.random.normal(sub, (3, n), state.particles.dtype)
     noise = jnp.zeros((6, n), state.particles.dtype)
@@ -213,7 +210,6 @@ def fleet_update_resample(
     gps_map_xy: jnp.ndarray,  # (B, 2)
     params: PFParams,
     pmesh=None,
-    use_pallas: bool = False,
 ) -> PFState:
     """Batched ``update_resample`` (systematic scheme) for a mission fleet.
 
@@ -232,7 +228,7 @@ def fleet_update_resample(
     if pmesh is not None:
         from ..parallel.mesh import PARTICLE_AXIS
 
-        # the blocked-CDF shard kernel needs lane-tiled shards; banks too
+        # the blocked-CDF shard body needs CDF_BLOCK-tiled shards; banks too
         # small to tile keep the vmapped sampler (same ancestors — GSPMD's
         # gather is cheap at those sizes)
         ns = states.particles.shape[2] // pmesh.shape[PARTICLE_AXIS]
@@ -241,7 +237,7 @@ def fleet_update_resample(
         from ..parallel import resample_dist
 
         parts = resample_dist.systematic_resample_gather_dist_batched(
-            states.particles, w, k_res, pmesh, use_pallas=use_pallas)
+            states.particles, w, k_res, pmesh)
     else:
         parts = jax.vmap(
             lambda p, wi, k: p[:, resampling.systematic_resample(k, wi)]
@@ -258,7 +254,6 @@ def update_resample(
     gps_map_xy: jnp.ndarray,
     params: PFParams,
     scheme: str = "residual",
-    use_pallas: bool = False,
     pmesh=None,
 ) -> PFState:
     """GPS weight update + resample + jitter (``auv_pf.py:135-198``).
@@ -269,23 +264,19 @@ def update_resample(
     halo exchange), for banks sharded across chips. Ancestors are
     bit-identical to the single-device path (dryrun-verified)."""
     key, k_res, k_noise = jax.random.split(state.key, 3)
-    w = _gps_weights(state.particles, gps_map_xy, params)
+    with jax.named_scope("pf_weights"):
+        w = _gps_weights(state.particles, gps_map_xy, params)
 
-    if pmesh is not None and scheme == "systematic":
-        # multi-chip bank: distributed resample with explicit collectives
-        from ..parallel import resample_dist
+    with jax.named_scope("pf_resample"):
+        if pmesh is not None and scheme == "systematic":
+            # multi-device bank: distributed resample, explicit collectives
+            from ..parallel import resample_dist
 
-        parts = resample_dist.systematic_resample_gather_dist(
-            state.particles, w, k_res, pmesh, use_pallas=use_pallas)
-    elif use_pallas and scheme == "systematic":
-        # fused Pallas resample+gather (monotone-window MXU expansion) —
-        # bit-identical ancestors to resampling.systematic_resample
-        from ..ops import pf_kernels
-
-        parts = pf_kernels.systematic_resample_gather(state.particles, w, k_res)
-    else:
-        idx = resampling.SCHEMES[scheme](k_res, w)
-        parts = state.particles[:, idx]
+            parts = resample_dist.systematic_resample_gather_dist(
+                state.particles, w, k_res, pmesh)
+        else:
+            idx = resampling.SCHEMES[scheme](k_res, w)
+            parts = state.particles[:, idx]
     n = parts.shape[1]
     noise = jax.random.normal(k_noise, (6, n), parts.dtype) * jnp.sqrt(
         params.res_noise_cov
@@ -314,16 +305,10 @@ def step(
     state: PFState,
     tick,
     scheme: str = "residual",
-    use_pallas: bool = False,
     pmesh=None,
 ):
     """One PF tick: predict on fresh odometry, GPS update+resample when a
     fresh fix arrives and the vehicle is not diving.
-
-    ``use_pallas=True`` routes predict + pose moments through the fused
-    TPU kernel (ops.pf_kernels) — one HBM pass over the bank instead of
-    separate noise/motion/reduction passes (~1.7x per-tick speedup at 10^6
-    particles; hardware PRNG stream instead of threefry).
 
     ``pmesh``: mesh with a ``particle`` axis — the bank is sharded across
     chips and the (systematic) resample runs through the explicit-
@@ -336,25 +321,8 @@ def step(
 
     dt = jnp.maximum(tick.ticks - state.t_prev, 0.0)
 
-    if use_pallas:
-        from ..ops import pf_kernels
-
-        def do_predict(s):
-            key, k_seed = jax.random.split(s.key)
-            seed = jax.random.randint(k_seed, (), 0, 2**31 - 1)
-            parts, mean, cov = pf_kernels.fused_predict_moments(
-                s.particles, odom.value, dt, jnp.sqrt(params.motion_cov), seed
-            )
-            return PFState(particles=parts, key=key, t_prev=tick.ticks), mean, cov
-
-        def skip_predict(s):
-            mean, cov = estimate(s.particles)
-            return s, mean, cov
-
-        pred, mean_pred, cov_pred = jax.lax.cond(
-            odom.fresh, do_predict, skip_predict, state
-        )
-    else:
+    # named scopes label the legs in a profiler trace (bench.py --trace)
+    with jax.named_scope("pf_predict"):
         pred = jax.lax.cond(
             odom.fresh,
             lambda s: predict(s, odom.value, dt, params)._replace(t_prev=tick.ticks),
@@ -362,521 +330,22 @@ def step(
             state,
         )
 
-    # cond (not where): resampling sorts/gathers the whole bank — at 10^6
+    # cond (not where): resampling gathers the whole bank — at 10^6
     # particles it must only run on the (rare) GPS ticks
     do_update = gps.fresh & (diving.value[0] < 0.5)
-    new_state = jax.lax.cond(
-        do_update,
-        lambda s: update_resample(
-            s, gps.value[0:2], params, scheme, use_pallas, pmesh=pmesh),
-        lambda s: s,
-        pred,
-    )
-
-    if use_pallas:
-        # moments came free with the fused predict; recompute only on the
-        # (rare) ticks where a resample changed the bank afterwards
-        mean, cov = jax.lax.cond(
+    with jax.named_scope("pf_update_resample"):
+        new_state = jax.lax.cond(
             do_update,
-            lambda s: estimate(s.particles),
-            lambda s: (mean_pred, cov_pred),
-            new_state,
+            lambda s: update_resample(
+                s, gps.value[0:2], params, scheme, pmesh=pmesh),
+            lambda s: s,
+            pred,
         )
-    else:
+
+    with jax.named_scope("pf_moments"):
         mean, cov = estimate(new_state.particles)
     out = {"mean": mean, "cov": cov, "updated": do_update}
     return new_state, out
-
-
-def _update_resample_fast(parts, gps_map_xy, k_res, k_noise, params):
-    """Weights -> fused systematic resample -> x/y/yaw jitter -> refreshed
-    lane-partial moment sums. GPS-tick-only companion of the fast scan.
-
-    z/roll/pitch jitter is skipped: those rows are re-substituted absolutely
-    from odometry at the next predict (``auv_particle.py:55-60``) and the
-    fused path reports odometry values for them, so the jitter would be
-    statistically invisible — three fewer threefry rows per resample.
-
-    Weights use the order-pinned halving-tree normalization (r05) — the
-    same one as the dense path — so a particle-sharded fast run
-    (``_update_resample_fast_shard``) reproduces them bitwise."""
-    from ..ops import pf_kernels
-
-    pos_map = params.r_m2o @ parts[0:3] + params.t_m2o[:, None]
-    dx = gps_map_xy[0] - pos_map[0]
-    dy = gps_map_xy[1] - pos_map[1]
-    logw = -0.5 * (dx * dx + dy * dy) / params.meas_var
-    logw = jnp.where(jnp.isfinite(logw), logw, -jnp.inf)
-    w = resampling.normalize_weights_det(logw)
-
-    # On TPU, jitter + moment sums ride the resample kernel's output write
-    # (the XLA tail — (3,N) threefry + 3 bank passes + a moment pass —
-    # measured ~0.3 ms of the ~2.7 ms GPS update at 2^20); the jitter
-    # stream is the TPU hardware PRNG, like the fast path's motion noise.
-    # On CPU the interpreter's PRNG emulation is degenerate (constant
-    # draws accumulate into a systematic drift), so keep the threefry tail.
-    sd = jnp.sqrt(params.res_noise_cov)
-    if jax.default_backend() == "tpu":
-        seed = jax.random.randint(
-            k_noise, (), 0, jnp.int32(2 ** 31 - 1), dtype=jnp.int32)
-        parts, sums = pf_kernels.systematic_resample_gather(
-            parts, w, k_res,
-            jitter_sd=jnp.stack([sd[0], sd[1], sd[5]]), seed=seed)
-        return parts, sums
-
-    parts = pf_kernels.systematic_resample_gather(parts, w, k_res)
-    n = parts.shape[1]
-    n3 = jax.random.normal(k_noise, (3, n), parts.dtype)
-    parts = parts.at[0].add(n3[0] * sd[0])
-    parts = parts.at[1].add(n3[1] * sd[1])
-    parts = parts.at[5].add(n3[2] * sd[5])
-    return parts, pf_kernels.moment_sums(parts)
-
-
-def _update_resample_fast_shard(parts, gps_map_xy, k_res, k_noise, params,
-                                axis_name):
-    """Shard body of the GPS update for the mesh-sharded fast paths (runs
-    inside ``shard_map`` over the particle axis): BITWISE the single-device
-    ``_update_resample_fast`` on TPU, at any shard count (r05; VERDICT r04
-    weak #2):
-
-    * weights through ``normalize_weights_det_shard`` (pmax is exactly
-      associative; the halving-tree sums decompose shard-locally) —
-      bitwise the unsharded ``normalize_weights_det``;
-    * ancestors through the explicit-collectives distributed resample
-      (``parallel.resample_dist.systematic_gather_shard`` — blocked-CDF
-      prefix all-gather, ppermute halo, local one-hot/MXU expansion) —
-      bit-identical by the shared blocked summation tree;
-    * x/y/yaw jitter through the standalone kernel with the GLOBAL chunk
-      index as the seed offset (``pf_kernels.jitter_moments_call``) — the
-      exact hardware-PRNG stream the fused unsharded tail draws.
-
-    Moment sums are LOCAL lane-partials (the caller psums them once at
-    scan end); only they carry f32 reduction-order ulps vs the unsharded
-    run — outputs, never the bank. Remaining divergences: shards too
-    narrow for the 8192-wide jitter chunks, and the CPU interpret path,
-    keep the per-shard threefry jitter (documented)."""
-    from ..ops import pf_kernels
-    from ..parallel import resample_dist
-
-    pos_map = params.r_m2o @ parts[0:3] + params.t_m2o[:, None]
-    dx = gps_map_xy[0] - pos_map[0]
-    dy = gps_map_xy[1] - pos_map[1]
-    logw = -0.5 * (dx * dx + dy * dy) / params.meas_var
-    logw = jnp.where(jnp.isfinite(logw), logw, -jnp.inf)
-    w = resampling.normalize_weights_det_shard(logw, axis_name)
-
-    # clamp halo/block to the shard width like the public dist entries do
-    # (ADVICE r04: unclamped defaults turned a narrow shard into a generic
-    # trace-time "violate tiling" error instead of a working small-bank path)
-    ns = parts.shape[1]
-    on_tpu = jax.default_backend() == "tpu"
-    parts = resample_dist.systematic_gather_shard(
-        parts, w, k_res, axis_name=axis_name,
-        halo=resample_dist._clamped_halo(4096, ns),
-        block=min(512, ns),
-        use_pallas=on_tpu)
-
-    sd = jnp.sqrt(params.res_noise_cov)
-    s = jax.lax.axis_index(axis_name)
-    if on_tpu and ns % 8192 == 0:
-        seed = jax.random.randint(
-            k_noise, (), 0, jnp.int32(2 ** 31 - 1), dtype=jnp.int32)
-        return pf_kernels.jitter_moments_call(
-            parts, jnp.stack([sd[0], sd[1], sd[5]]), seed,
-            seed_off=s * (ns // 8192))
-
-    n3 = jax.random.normal(
-        jax.random.fold_in(k_noise, s), (3, parts.shape[1]), parts.dtype)
-    parts = parts.at[0].add(n3[0] * sd[0])
-    parts = parts.at[1].add(n3[1] * sd[1])
-    parts = parts.at[5].add(n3[2] * sd[5])
-    return parts, pf_kernels.moment_sums(parts)
-
-
-_sharded_runner_cache: dict = {}
-
-
-def _sharded_runner(pmesh, chunk: int, segmented: bool, nxy: bool = True,
-                    nyaw_on: bool = True):
-    """Jitted shard_map runner for the mesh-sharded fast paths, cached per
-    (mesh, chunk, variant) so repeated replays reuse the compiled program.
-
-    The WHOLE mission scan lives inside one shard_map over the particle
-    axis: each shard scans its (6, Ns) bank columns through the fused
-    Pallas predict kernel locally and through the distributed-resample
-    shard body on GPS ticks. Per-shard PRNG seeds are offset by the
-    shard's global chunk index — for the motion noise (predict chunks)
-    AND, since r05, the resample jitter (8192-wide jitter chunks) — and
-    the weights ride the shard-decomposable halving-tree normalization,
-    so when Ns is a multiple of both chunk sizes the BANK trajectory is
-    BITWISE the unsharded fast path's; only reported moments carry
-    psum-order ulps (outputs, never state)."""
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from ..parallel.mesh import PARTICLE_AXIS
-
-    ck = (pmesh, chunk, segmented, nxy, nyaw_on)
-    cached = _sharded_runner_cache.get(ck)
-    if cached is not None:
-        return cached
-
-    from ..ops import pf_kernels
-
-    def tick_body(parts, params, par16, seeds, do_update, gps_xy,
-                  res_keys, noise_keys):
-        blocks = parts.shape[1] // chunk
-        seed_off = jax.lax.axis_index(PARTICLE_AXIS) * blocks
-
-        def body(ps, xs):
-            p16, seed, upd, gxy, kr, kn = xs
-            ps, sums = pf_kernels.predict_call(
-                ps, p16, seed + seed_off, chunk=chunk)
-            ps, sums = jax.lax.cond(
-                upd,
-                lambda a: _update_resample_fast_shard(
-                    a[0], gxy, kr, kn, params, PARTICLE_AXIS),
-                lambda a: a,
-                (ps, sums),
-            )
-            return ps, sums
-
-        final, sums_t = jax.lax.scan(
-            body, parts, (par16, seeds, do_update, gps_xy, res_keys,
-                          noise_keys))
-        return final, jax.lax.psum(sums_t, PARTICLE_AXIS)
-
-    def seg_body(parts, params, seg_par, seg_seeds, upd_seg, seg_gps,
-                 seg_kr, seg_kn, upd_slot):
-        blocks = parts.shape[1] // chunk
-        seed_off = jax.lax.axis_index(PARTICLE_AXIS) * blocks
-
-        def body(ps, xs):
-            p16, sds, upd, gxy, kr, kn, uslot = xs
-            ps, sums = pf_kernels.predict_call_multi(
-                ps, p16, sds + seed_off, chunk=chunk, nxy=nxy, nyaw=nyaw_on,
-                nticks=uslot + 1)
-
-            def do_upd(args):
-                p, s = args
-                p2, s2 = _update_resample_fast_shard(
-                    p, gxy, kr, kn, params, PARTICLE_AXIS)
-                return p2, s.at[uslot].set(s2)
-
-            ps, sums = jax.lax.cond(upd, do_upd, lambda a: a, (ps, sums))
-            return ps, sums
-
-        final, sums_sk = jax.lax.scan(
-            body, parts,
-            (seg_par, seg_seeds, upd_seg, seg_gps, seg_kr, seg_kn, upd_slot))
-        return final, jax.lax.psum(sums_sk, PARTICLE_AXIS)
-
-    shard_body = seg_body if segmented else tick_body
-    n_rep = 8 if segmented else 7  # replicated operand count after parts
-    fn = jax.jit(shard_map(
-        shard_body,
-        mesh=pmesh,
-        in_specs=(P(None, PARTICLE_AXIS),) + (P(),) * n_rep,
-        out_specs=(P(None, PARTICLE_AXIS), P()),
-        # pallas_call outputs carry no varying-mesh-axes annotation
-        check_vma=False,
-    ))
-    _sharded_runner_cache[ck] = fn
-    return fn
-
-
-def _tick_precompute(timeline: Timeline, params: PFParams, key):
-    """Vectorized per-tick scalar math shared by the fast paths: par16 rows,
-    seeds, gating flags, update keys."""
-    from ..utils.geometry import rpy_from_quat
-
-    od = timeline.channels["odom"]
-    gps = timeline.channels["gps"]
-    diving = timeline.channels["diving"]
-    ticks = timeline.ticks
-    T = ticks.shape[0]
-    dtype = jnp.float32
-
-    key, k_seeds, k_res, k_noise = jax.random.split(key, 4)
-    fresh = od.fresh
-    # t_prev_i = stamp of the last fresh-odom tick strictly before i (else 0)
-    lf = jax.lax.associative_scan(jnp.maximum, jnp.where(fresh, ticks, 0.0))
-    t_prev = jnp.concatenate([jnp.zeros((1,), ticks.dtype), lf[:-1]])
-    dts = jnp.maximum(ticks - t_prev, 0.0).astype(dtype)
-    scale = fresh.astype(dtype)
-    subst = (jnp.cumsum(fresh) > 0).astype(dtype)
-
-    rpy = jax.vmap(rpy_from_quat)(od.value[:, 3:7]).astype(dtype)
-    vals = od.value.astype(dtype)
-    sd = jnp.sqrt(params.motion_cov).astype(dtype)
-    zero = jnp.zeros((T,), dtype)
-    par16 = jnp.stack(
-        [
-            vals[:, 7] * dts * scale, vals[:, 8] * dts * scale,
-            vals[:, 9] * dts * scale, vals[:, 12] * dts * scale,
-            rpy[:, 0], rpy[:, 1], vals[:, 2],
-            zero + sd[0], zero + sd[1], zero + sd[5],
-            zero, scale, subst, zero, zero, zero,
-        ],
-        axis=1,
-    )
-    seeds = jax.random.randint(k_seeds, (T,), 0, 2**31 - 1, jnp.int32)
-    do_update = gps.fresh & (diving.value[:, 0] < 0.5)
-    res_keys = jax.vmap(lambda i: jax.random.fold_in(k_res, i))(jnp.arange(T))
-    noise_keys = jax.vmap(lambda i: jax.random.fold_in(k_noise, i))(jnp.arange(T))
-    return (par16, seeds, do_update, gps.value[:, 0:2].astype(dtype),
-            res_keys, noise_keys, vals, rpy, lf, key)
-
-
-def _segment_plan(upd: np.ndarray, k_max: int):
-    """Host-side split of [0,T) into runs ending at each update tick (and at
-    k_max): list of (start, length, has_update)."""
-    T = len(upd)
-    segs = []
-    start = 0
-    for t in range(T):
-        if upd[t] or (t - start + 1) == k_max:
-            segs.append((start, t - start + 1, bool(upd[t])))
-            start = t + 1
-    if start < T:
-        segs.append((start, T - start, False))
-    return segs
-
-
-def _segment_arrays(upd_host: np.ndarray, k_max: int):
-    """Numpy slot tables for the segmented fast path (shared with the floor
-    ablation probe so it decomposes EXACTLY the production plan): returns
-    (idx (S,K), valid (S,K), upd_seg (S,), upd_tick (S,), upd_slot (S,),
-    flat_slot (T,))."""
-    segs = _segment_plan(upd_host, k_max)
-    S, K, T = len(segs), k_max, len(upd_host)
-    idx = np.zeros((S, K), np.int32)
-    valid = np.zeros((S, K), bool)
-    upd_seg = np.zeros((S,), bool)
-    upd_tick = np.zeros((S,), np.int32)
-    upd_slot = np.zeros((S,), np.int32)
-    for s, (start, length, has_upd) in enumerate(segs):
-        idx[s, :length] = np.arange(start, start + length)
-        idx[s, length:] = start + length - 1
-        valid[s, :length] = True
-        upd_seg[s] = has_upd
-        upd_tick[s] = start + length - 1
-        upd_slot[s] = length - 1
-    flat_slot = np.zeros((T,), np.int32)
-    for s, (start, length, _h) in enumerate(segs):
-        flat_slot[start:start + length] = s * K + np.arange(length)
-    return idx, valid, upd_seg, upd_tick, upd_slot, flat_slot
-
-
-@jax.jit
-def _segment_inputs(timeline, params, key, idx_j, valid_j, upd_tick_j):
-    """Per-segment scan inputs from the tick precompute — shared by the
-    single-device jitted segment scan and the mesh-sharded runner."""
-    (par16, seeds, _do_update, gps_xy, res_keys, noise_keys,
-     vals, rpy, lf, key) = _tick_precompute(timeline, params, key)
-
-    seg_par = par16[idx_j]                        # (S, K, 16)
-    # pads: no motion, no noise (cols 0..3 = vdt/wzdt, 11 = noise scale)
-    mask = valid_j[..., None].astype(par16.dtype)
-    kill = jnp.asarray(
-        [1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0], par16.dtype)
-    seg_par = seg_par * (mask + (1 - mask) * (1 - kill))
-    seg_seeds = seeds[idx_j]                      # (S, K)
-    seg_gps = gps_xy[upd_tick_j]                  # (S, 2)
-    seg_kr = res_keys[upd_tick_j]
-    seg_kn = noise_keys[upd_tick_j]
-    return (seg_par, seg_seeds, seg_gps, seg_kr, seg_kn,
-            vals, rpy, lf, key)
-
-
-@functools.partial(jax.jit, static_argnames=("nxy", "nyaw_on"))
-def _run_segments(timeline, params, key, s0_particles,
-                  idx_j, valid_j, upd_seg_j, upd_tick_j, upd_slot_j,
-                  flat_slot_j, nxy, nyaw_on):
-    """Jitted segment scan for ``run_fast_segmented`` (module-level so the
-    jit cache persists across calls)."""
-    from ..ops import pf_kernels
-
-    S, K = idx_j.shape
-    (seg_par, seg_seeds, seg_gps, seg_kr, seg_kn,
-     vals, rpy, lf, key) = _segment_inputs(
-        timeline, params, key, idx_j, valid_j, upd_tick_j)
-
-    def body(parts, xs):
-        p16, sds, upd, gxy, kr, kn, uslot = xs
-        parts, sums = pf_kernels.predict_call_multi(
-            parts, p16, sds, nxy=nxy, nyaw=nyaw_on, nticks=uslot + 1)
-
-        def do_upd(args):
-            # post-resample moments on the update tick, matching run_fast /
-            # the dense scan (ADVICE r02: one set of public semantics)
-            p, s = args
-            p2, s2 = _update_resample_fast(p, gxy, kr, kn, params)
-            return p2, s.at[uslot].set(s2)
-
-        parts, sums = jax.lax.cond(upd, do_upd, lambda a: a, (parts, sums))
-        return parts, sums
-
-    final_parts, sums_sk = jax.lax.scan(
-        body, s0_particles,
-        (seg_par, seg_seeds, upd_seg_j, seg_gps, seg_kr, seg_kn, upd_slot_j),
-    )
-    sums_t = sums_sk.reshape(S * K, pf_kernels.N_SUMS, 128)[flat_slot_j]
-    mean, cov = pf_kernels.finalize_moments(
-        sums_t, vals[:, 2], rpy[:, 0], rpy[:, 1])
-    return final_parts, mean, cov, lf[-1], key
-
-
-def run_fast_segmented(
-    timeline: Timeline,
-    params: PFParams,
-    cfg: PFConfig = PFConfig(),
-    n_particles: int | None = None,
-    key=None,
-    k_max: int = 12,
-    pmesh=None,
-):
-    """Segmented TPU fast path: the mission is split (on host, from the
-    concrete timeline) into predict runs that end at each GPS-update tick,
-    and each run executes as ONE multi-tick Pallas call with the bank chunk
-    held in VMEM — HBM traffic and dispatch overhead amortize over the run.
-
-    Requires a concrete (non-traced) timeline; semantics match ``run_fast``
-    (update-tick moments are reported post-resample). With ``pmesh`` the
-    bank shards over the mesh's particle axis and the whole segment scan
-    runs inside one shard_map: local multi-tick predict kernels + the
-    explicit-collectives distributed resample (``_sharded_runner``)."""
-    from ..ops import pf_kernels
-
-    n = cfg.particle_count if n_particles is None else n_particles
-    key = jax.random.PRNGKey(0) if key is None else key
-
-    upd_host = np.asarray(
-        timeline.channels["gps"].fresh
-        & (timeline.channels["diving"].value[:, 0] < 0.5)
-    )
-    # slot -> tick index (pads repeat the segment's last real tick; their
-    # par16 rows are zeroed below so they are exact no-ops)
-    idx, valid, upd_seg, upd_tick, upd_slot, flat_slot = _segment_arrays(
-        upd_host, k_max)
-    S, K = idx.shape
-
-    idx_j = jnp.asarray(idx)
-    valid_j = jnp.asarray(valid)
-    upd_seg_j = jnp.asarray(upd_seg)
-    upd_tick_j = jnp.asarray(upd_tick)
-    upd_slot_j = jnp.asarray(upd_slot)
-    flat_slot_j = jnp.asarray(flat_slot)
-
-    # trace-time noise-row flags: std-0 rows compile out of the kernel
-    # (reference default motion_cov zeroes x/y — auv_pf.launch:18)
-    try:
-        mc = np.asarray(params.motion_cov)
-        nxy = bool(mc[0] > 0 or mc[1] > 0)
-        nyaw_on = bool(mc[5] > 0)
-    except Exception:
-        nxy = nyaw_on = True
-
-    s0 = init_state(n, params, key)
-    if pmesh is not None:
-        from jax.sharding import NamedSharding, PartitionSpec as P
-
-        from ..parallel.mesh import PARTICLE_AXIS
-
-        P_ = pmesh.shape[PARTICLE_AXIS]
-        if n % P_:
-            raise ValueError(f"particle count {n} not divisible by "
-                             f"particle axis {P_}")
-        chunk = min(64 * 1024, n // P_)
-        (seg_par, seg_seeds, seg_gps, seg_kr, seg_kn,
-         vals, rpy, lf, key) = _segment_inputs(
-            timeline, params, key, idx_j, valid_j, upd_tick_j)
-        parts0 = jax.device_put(
-            s0.particles, NamedSharding(pmesh, P(None, PARTICLE_AXIS)))
-        runner = _sharded_runner(pmesh, chunk, segmented=True,
-                                 nxy=nxy, nyaw_on=nyaw_on)
-        final_parts, sums_sk = runner(
-            parts0, params, seg_par, seg_seeds, upd_seg_j, seg_gps,
-            seg_kr, seg_kn, upd_slot_j)
-        sums_t = sums_sk.reshape(S * K, pf_kernels.N_SUMS, 128)[flat_slot_j]
-        mean, cov = pf_kernels.finalize_moments(
-            sums_t, vals[:, 2], rpy[:, 0], rpy[:, 1])
-        t_prev = lf[-1]
-    else:
-        final_parts, mean, cov, t_prev, key = _run_segments(
-            timeline, params, key, s0.particles,
-            idx_j, valid_j, upd_seg_j, upd_tick_j, upd_slot_j, flat_slot_j,
-            nxy=nxy, nyaw_on=nyaw_on)
-    out = {"mean": mean, "cov": cov, "updated": jnp.asarray(upd_host)}
-    final = PFState(particles=final_parts, key=key, t_prev=t_prev)
-    return final, out
-
-
-def run_fast(
-    timeline: Timeline,
-    params: PFParams,
-    cfg: PFConfig = PFConfig(),
-    n_particles: int | None = None,
-    key=None,
-    pmesh=None,
-):
-    """TPU fast path of ``run``: identical filter semantics, restructured for
-    the scan-dispatch floor (~50 us/iteration on this backend).
-
-    All per-tick scalar math is precomputed vectorized over the timeline
-    (dt from a cummax of fresh-odom stamps, rpy, seeds, gating flags); the
-    scan body is one fused Pallas predict + a rare resample cond; moment
-    finalization happens vectorized after the scan from the stacked
-    lane-partial sums. With ``pmesh`` the whole scan runs inside one
-    shard_map over the particle axis (``_sharded_runner``)."""
-    from ..ops import pf_kernels
-
-    n = cfg.particle_count if n_particles is None else n_particles
-    key = jax.random.PRNGKey(0) if key is None else key
-    s0 = init_state(n, params, key)
-
-    (par16, seeds, do_update, gps_xy, res_keys, noise_keys,
-     vals, rpy, lf, key) = _tick_precompute(timeline, params, key)
-
-    if pmesh is not None:
-        from jax.sharding import NamedSharding, PartitionSpec as P
-
-        from ..parallel.mesh import PARTICLE_AXIS
-
-        P_ = pmesh.shape[PARTICLE_AXIS]
-        if n % P_:
-            raise ValueError(f"particle count {n} not divisible by "
-                             f"particle axis {P_}")
-        chunk = min(64 * 1024, n // P_)
-        parts0 = jax.device_put(
-            s0.particles, NamedSharding(pmesh, P(None, PARTICLE_AXIS)))
-        runner = _sharded_runner(pmesh, chunk, segmented=False)
-        final_parts, sums_t = runner(
-            parts0, params, par16, seeds, do_update, gps_xy, res_keys,
-            noise_keys)
-    else:
-        def body(parts, xs):
-            p16, seed, upd, gxy, kr, kn = xs
-            parts, sums = pf_kernels.predict_call(parts, p16, seed)
-            parts, sums = jax.lax.cond(
-                upd,
-                lambda a: _update_resample_fast(a[0], gxy, kr, kn, params),
-                lambda a: a,
-                (parts, sums),
-            )
-            return parts, sums
-
-        final_parts, sums_t = jax.lax.scan(
-            body, s0.particles,
-            (par16, seeds, do_update, gps_xy, res_keys, noise_keys),
-        )
-
-    mean, cov = pf_kernels.finalize_moments(
-        sums_t, vals[:, 2], rpy[:, 0], rpy[:, 1])
-    out = {"mean": mean, "cov": cov, "updated": do_update}
-    final = PFState(particles=final_parts, key=key, t_prev=lf[-1])
-    return final, out
 
 
 def run(
@@ -886,36 +355,16 @@ def run(
     n_particles: int | None = None,
     key=None,
     scheme: str = "residual",
-    use_pallas: bool = False,
-    segmented: bool | None = None,
     pmesh=None,
 ):
-    """Full-mission PF replay. ``use_pallas=True`` with scheme="systematic"
-    takes the TPU fast paths; ``segmented`` picks between them explicitly
-    (True = host-segmented multi-tick kernel, needs a concrete timeline;
-    False = per-tick fused kernel scan; None = segmented when the timeline
-    is concrete). Both fast paths report post-resample moments on update
-    ticks, matching the dense scan.
+    """Full-mission PF replay: one ``lax.scan`` of ``step`` over the
+    timeline. Returns (final PFState, per-tick outputs: mean (T, 6),
+    cov (T, 3, 3), updated (T,)).
 
     ``pmesh``: a mesh with a ``particle`` axis shards the bank across
-    chips. The fast paths run the whole scan inside one shard_map (local
-    Pallas predict + the explicit-collectives distributed resample of
-    ``parallel.resample_dist``); the dense path shards via GSPMD with the
-    systematic resample routed through the same distributed kernel."""
-    if use_pallas and scheme == "systematic":
-        concrete = not isinstance(timeline.ticks, jax.core.Tracer)
-        if segmented is None:
-            segmented = concrete
-        if segmented:
-            if not concrete:
-                raise ValueError(
-                    "segmented=True needs a concrete (non-traced) timeline")
-            # host-side GPS segmentation enables the multi-tick kernel
-            # (HBM traffic + dispatch amortize per run)
-            return run_fast_segmented(timeline, params, cfg, n_particles, key,
-                                      pmesh=pmesh)
-        return run_fast(timeline, params, cfg, n_particles, key, pmesh=pmesh)
-
+    devices. Predict and weights shard elementwise through GSPMD; the
+    systematic resample runs through the explicit-collectives distributed
+    resample of ``parallel.resample_dist``."""
     n = cfg.particle_count if n_particles is None else n_particles
     s0 = init_state(n, params, key)
     if pmesh is not None:
@@ -927,7 +376,7 @@ def run(
             s0.particles, NamedSharding(pmesh, P(None, PARTICLE_AXIS))))
 
     def body(state, tick):
-        return step(cfg, params, state, tick, scheme, use_pallas, pmesh=pmesh)
+        return step(cfg, params, state, tick, scheme, pmesh=pmesh)
 
     return jax.lax.scan(body, s0, timeline)
 

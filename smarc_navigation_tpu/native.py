@@ -15,10 +15,13 @@ Falls back cleanly (``available() == False``) if no compiler is present.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -27,6 +30,7 @@ _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_HERE, "native", "smarcnav_native.cc")
 _LIB = os.path.join(_HERE, "native", "libsmarcnav.so")
 _STAMP = _LIB + ".srchash"  # sha256 of the source the cached lib was built from
+_LOCK = _LIB + ".lock"
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -37,15 +41,50 @@ def _src_hash() -> str:
         return hashlib.sha256(f.read()).hexdigest()
 
 
-def _build(src_hash: str) -> bool:
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive lock around build + load: several processes (test workers)
+    may reach ``_load`` at once, and only one may write the library. A
+    checkout where no lock file can be created proceeds unlocked."""
     try:
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", _LIB, _SRC],
-            check=True,
-            capture_output=True,
-        )
-        with open(_STAMP, "w") as f:
+        fd = os.open(_LOCK, os.O_CREAT | os.O_RDWR, 0o644)
+    except OSError:
+        yield
+        return
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # closing releases the flock
+
+
+def _replace_atomically(path: str, write) -> None:
+    """Write via ``write(tmp_path)`` to a temporary file in the target's
+    directory, then ``os.replace`` it over ``path``: a reader sees the old
+    file or the whole new one, never a partial write."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                               prefix=os.path.basename(path) + ".")
+    os.close(fd)
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _build(src_hash: str) -> bool:
+    def compile_to(tmp):
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
+                       check=True, capture_output=True)
+
+    def write_stamp(tmp):
+        with open(tmp, "w") as f:
             f.write(src_hash)
+
+    try:
+        _replace_atomically(_LIB, compile_to)
+        _replace_atomically(_STAMP, write_stamp)
         return True
     except (subprocess.CalledProcessError, FileNotFoundError, OSError):
         return False
@@ -68,10 +107,14 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     _tried = True
     src_hash = _src_hash()
-    if not os.path.exists(_LIB) or not _cached_lib_current(src_hash):
-        if not _build(src_hash):
+    with _build_lock():
+        if not os.path.exists(_LIB) or not _cached_lib_current(src_hash):
+            if not _build(src_hash):
+                return None
+        try:
+            lib = ctypes.CDLL(_LIB)
+        except OSError:
             return None
-    lib = ctypes.CDLL(_LIB)
     c_dp = ctypes.POINTER(ctypes.c_double)
     c_ip = ctypes.POINTER(ctypes.c_int)
     c_lp = ctypes.POINTER(ctypes.c_int64)

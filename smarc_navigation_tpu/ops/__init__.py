@@ -2,7 +2,6 @@ from . import (  # noqa: F401
     assignment,
     bezier,
     oned_kf,
-    pf_kernels,
     raycast,
     resampling,
     sonar,

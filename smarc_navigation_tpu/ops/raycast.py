@@ -10,7 +10,7 @@ against a flat seafloor plus spherical rock landmarks:
 * intensity = background + reflectivity bump on rock hits.
 
 Feeding the rendered ping through ``ops.sonar.extract_peaks`` closes the
-loop sim → perception → SLAM entirely on TPU; vmap over missions and shard
+loop sim → perception → SLAM entirely on device; vmap over missions and shard
 over the mesh for fleets.
 """
 

@@ -3,7 +3,7 @@
 Re-implementations of the four FilterPy-style samplers the reference vendors
 (``auv_particle_filter/scripts/resampling.py:27-194``), reformulated for
 XLA: no data-dependent python loops — every scheme is cumsum + searchsorted
-with static shapes, so they jit, vmap over mission fleets, and run on TPU.
+with static shapes, so they jit, vmap over mission fleets, and run on device.
 
 All samplers take normalized weights (N,) and a PRNG key and return (N,)
 int32 ancestor indices.
@@ -77,17 +77,12 @@ def tree_sum(x: jnp.ndarray) -> jnp.ndarray:
     ``tree_sum_shard`` rebuilds the global value from a 2 KB row-sum
     all-gather.
 
-    Formulation notes (r05, ``scripts/measure_treesum.py`` on chip at
-    2^20): LSB-first strided pairing (``x[0::2]+x[1::2]``) is shard-local
-    too but each stride-2 slice of a big vector is a lane relayout —
-    32.3 ms per normalize, a 13x regression of the whole PF tick; a
-    ``(R,2048) @ ones`` row dot is ~free and measured shard-invariant, but
-    its K-accumulation order is compiler-internal (eager vs jit on CPU
-    differ by 1 ulp even behind an optimization_barrier) — not a sound
-    basis for a bitwise claim. The contiguous fold-in-half form measures
-    ~free (<10 us/normalize) AND is pinned by IEEE semantics. Vectors
-    that don't tile by CDF_BLOCK fold directly (small banks; the
-    distributed paths require tiling anyway)."""
+    Formulation notes: a ``(R,2048) @ ones`` row dot would also be
+    shard-local, but its K-accumulation order is compiler-internal (eager
+    vs jit on CPU differ by 1 ulp even behind an optimization_barrier) —
+    not a sound basis for a bitwise claim; the contiguous fold-in-half form
+    is pinned by IEEE semantics. Vectors that don't tile by CDF_BLOCK fold
+    directly (small banks; the distributed paths require tiling anyway)."""
     n = x.shape[0]
     if n % CDF_BLOCK or n <= CDF_BLOCK:
         return _fold_half(x)
@@ -120,9 +115,7 @@ def normalize_weights_det(logw: jnp.ndarray) -> jnp.ndarray:
     ``jnp.max`` is exactly associative, the tree sum is order-pinned, and
     the elementwise tail is layout-independent — so a sharded bank produces
     bitwise the same weights (hence the same ancestors) as the
-    single-device program. (r05: an extra pre-floor ``e / tree_sum(e)``
-    normalization pass was dropped — 20 fold ops ≈ 110 µs/call of scan-body
-    dispatches at 2^20, numerically a no-op next to the final divide.)"""
+    single-device program."""
     m = jnp.max(logw)
     w = jnp.exp(logw - m) + 1e-30
     return w / tree_sum(w)
@@ -142,8 +135,8 @@ def normalize_weights_det_shard(logw: jnp.ndarray, axis_name: str) -> jnp.ndarra
 def systematic_counts(weights: jnp.ndarray, u) -> jnp.ndarray:
     """Monotone cumulative ancestor counts m_cum[i] = #outputs owned by
     ancestors 0..i (ints ending at N): cummax(clip(ceil(N·cdf − u))).
-    Shared by the XLA sampler, the fused Pallas kernel and the distributed
-    resample so their ancestors agree bit-for-bit."""
+    Shared by the single-device sampler and the distributed resample so
+    their ancestors agree bit-for-bit."""
     n = weights.shape[0]
     cdf = blocked_cdf(weights)
     cdf = cdf.at[-1].set(1.0)  # guard round-off (reference does the same)
@@ -152,10 +145,8 @@ def systematic_counts(weights: jnp.ndarray, u) -> jnp.ndarray:
     # boundaries can step back by an ulp, which survives the ceil at large
     # N); a true prefix sum of positive weights is — restore that invariant.
     #
-    # The repair is EXACTLY the global lax.cummax, computed blockwise (the
-    # global 2^20 cummax measured ~400 us/call — a fifth of the whole GPS
-    # update): cummax within each CDF_BLOCK row, then a cross-block carry
-    # max. Equality with the global cummax: blocked_cdf's value at a block
+    # The repair is EXACTLY the global lax.cummax, computed blockwise:
+    # cummax within each CDF_BLOCK row, then a cross-block carry max. Equality with the global cummax: blocked_cdf's value at a block
     # start is w ⊕ (prefixᵢ ⊕ rowsumᵢ) ≥ rowsumᵢ ⊕ prefixᵢ (f32 addition
     # is monotone for w ≥ 0 and commutative), so raw v can only step DOWN
     # within a row — and the carry max re-applies each previous row's
@@ -173,9 +164,8 @@ def systematic_counts(weights: jnp.ndarray, u) -> jnp.ndarray:
 def _inverse_cdf(weights: jnp.ndarray, positions: jnp.ndarray) -> jnp.ndarray:
     cdf = jnp.cumsum(weights)
     cdf = cdf.at[-1].set(1.0)  # guard round-off (reference does the same)
-    # method="sort": bitonic-sort-based lookup. The default binary search
-    # lowers to ~log2(N) rounds of 1M-wide random gathers on TPU (~300 ms at
-    # 10^6 particles); one fused sort is ~30x faster.
+    # method="sort": one sort-based lookup instead of the default binary
+    # search's ~log2(N) rounds of N-wide random gathers.
     return jnp.searchsorted(cdf, positions, method="sort").astype(jnp.int32)
 
 
@@ -185,7 +175,7 @@ def _expand_blocks(m_cum: jnp.ndarray) -> jnp.ndarray:
     m_cum[i] = number of output slots owned by ancestors 0..i (ints, ending
     at N). Returns (N,) ancestors: slot j belongs to the smallest i with
     m_cum[i] > j. Sort-free: scatter each block's index at its start slot,
-    then a running max — O(N) VPU work instead of a bitonic sort.
+    then a running max — O(N) work instead of a sort.
     """
     n = m_cum.shape[0]
     starts = jnp.concatenate([jnp.zeros(1, m_cum.dtype), m_cum[:-1]])

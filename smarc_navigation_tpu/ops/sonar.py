@@ -1,6 +1,6 @@
 """Sonar perception kernels: landmark extraction from raw sonar data.
 
-TPU-native rebuild of the reference's perception layer (SURVEY.md §2.4):
+JAX rebuild of the reference's perception layer (SURVEY.md §2.4):
 
 * ``extract_peaks`` — the sidescan/MBES LaserScan peak extractor
   (``sonar_manipulator.hpp:44-97``, duplicated at
@@ -75,10 +75,9 @@ def extract_peaks(
     run's exclusive end, a ``cumsum`` numbers the valid runs) and the
     K-slot compaction with masked lane reduces — no ``scatter``/``gather``
     anywhere. This matters for fleets: vmapped over 1024 missions inside a
-    scan body, the previous 4-scatter version cost ~1.9 ms/fleet-tick on
-    TPU (scatters don't vectorize across the batch); this one fuses into
-    the surrounding elementwise work (scripts/probe_raycast.py measures
-    the legs). Semantics are pinned by tests/test_sonar.py's oracle loop.
+    scan body, scatters don't vectorize across the batch, while this form
+    fuses into the surrounding elementwise work. Semantics are pinned by
+    tests/test_sonar.py's oracle loop.
     """
     B = intensities.shape[-1]
     dtype = intensities.dtype

@@ -2,10 +2,9 @@
 
 The reference resamples a 50-particle bank in a python loop
 (``auv_particle_filter/scripts/resampling.py:135-168``); the single-chip
-rebuild is ``ops.resampling.systematic_resample`` (XLA) and
-``ops.pf_kernels.systematic_resample_gather`` (fused Pallas expansion).
-This module is the multi-chip form: the (6, N) bank lives sharded over the
-mesh's ``particle`` axis and the resample runs with EXPLICIT collectives —
+rebuild is ``ops.resampling.systematic_resample``. This module is the
+multi-device form: the (6, N) bank lives sharded over the mesh's
+``particle`` axis and the resample runs with EXPLICIT collectives —
 nothing here relies on GSPMD re-gathering the bank.
 
 Design (per shard, inside ``shard_map``):
@@ -22,20 +21,16 @@ Design (per shard, inside ``shard_map``):
 3. **Halo exchange.** Systematic ancestors are monotone, so the ancestors
    of a shard's output slots form a contiguous global window near the
    shard's own range. Two ``ppermute``s pull a fixed halo of H particles
-   (and their counts) from each neighbour; the expansion then runs fully
-   locally — the Pallas one-hot/MXU kernel on TPU, searchsorted+take
-   elsewhere.
+   (and their counts) from each neighbour; the expansion (searchsorted +
+   take over the halo-extended window) then runs fully locally.
 4. **Exact fallback.** Under extreme weight imbalance the ancestor window
    can exceed the halo; a psum'd fit flag routes ALL shards to an
-   all-gather + exact gather (the same guard structure as the single-chip
-   kernel's ``fits`` branch). In a running filter this happens at most at
+   all-gather + exact gather. In a running filter this happens at most at
    a weight-collapse fix, never in steady state.
 
-Cost model (N=2^20, P=4 shards): the one-hot cell build that walls the
-single-chip resample at ~2 ms/call is O(N·block) VPU work — it divides by
-P. The added collectives are two ~1 KB all-gathers and two H-column
-ppermutes over ICI — microseconds. This is the implementation behind
-docs/ROOFLINE.md's "a pod slice shards the particle axis" scaling note.
+The added collectives per resample are two small all-gathers (N/2048 block
+sums and P shard-last counts) and four H-column ppermutes to the
+neighbouring devices.
 """
 
 from __future__ import annotations
@@ -44,7 +39,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import resampling
 
@@ -67,23 +62,21 @@ def systematic_gather_shard(
     key,                   # identical on every shard
     axis_name: str = PARTICLE_AXIS,
     halo: int = 4096,
-    use_pallas: bool = False,
-    block: int = 512,
 ) -> jnp.ndarray:
     """Shard body of the distributed systematic resample (call inside
     ``shard_map`` over the particle axis). Returns the shard's (6, Ns)
     resampled columns; the concatenation over shards is bit-identical to
     ``resampling.systematic_resample`` ancestors applied to the full bank.
 
-    Requirements: Ns divisible by ``resampling.CDF_BLOCK`` and ``block``;
-    ``halo`` a multiple of 128 with halo <= Ns.
+    Requirements: Ns divisible by ``resampling.CDF_BLOCK``; ``halo`` a
+    multiple of 128 with halo <= Ns.
     """
     P_ = jax.lax.axis_size(axis_name)
     s = jax.lax.axis_index(axis_name)
     ns = parts.shape[1]
     n = ns * P_
     H = halo
-    if ns % resampling.CDF_BLOCK or ns % block or H % 128 or H > ns:
+    if ns % resampling.CDF_BLOCK or H % 128 or H > ns:
         raise ValueError(f"shard size {ns} / halo {H} violate tiling")
     f32 = jnp.float32
     is_last = s == P_ - 1
@@ -109,72 +102,51 @@ def systematic_gather_shard(
         jnp.where(jnp.arange(P_) < s, last_all, 0), initial=0)
     m = jnp.maximum(m, prev_max)                             # == global cummax
 
-    parts8 = jnp.concatenate(
-        [parts.astype(f32), jnp.zeros((2, ns), f32)], axis=0)
-
     # --- 3. halo exchange --------------------------------------------------
     m_left = _ppermute_from_left(m[-H:], axis_name, P_)      # shard 0: zeros
     m_right = _ppermute_from_right(m[:H], axis_name, P_)
     m_right = jnp.where(is_last, n, m_right)                 # keep monotone
-    p_left = _ppermute_from_left(parts8[:, -H:], axis_name, P_)
-    p_right = _ppermute_from_right(parts8[:, :H], axis_name, P_)
+    p_left = _ppermute_from_left(parts[:, -H:], axis_name, P_)
+    p_right = _ppermute_from_right(parts[:, :H], axis_name, P_)
     m_ext = jnp.concatenate([m_left, m, m_right])            # (Ns + 2H,)
-    parts_ext = jnp.concatenate([p_left, parts8, p_right], axis=1)
+    parts_ext = jnp.concatenate([p_left, parts, p_right], axis=1)
 
     # --- 4. fit check (global) --------------------------------------------
-    # this shard's outputs are global slots [s·Ns, (s+1)·Ns); their ancestor
-    # window in extended coordinates must sit inside [0, Ns + 2H)
+    # this shard's outputs are global slots [s·Ns, (s+1)·Ns); their
+    # ancestors must sit inside the extended window [0, Ns + 2H): the
+    # window's first count must not already exceed g0 (left), and the last
+    # output slot's ancestor must be found in-window (right)
     g0 = s * ns
-    W = block + _wslack(block, ns + 2 * H)
-    ts = jnp.searchsorted(
-        m_ext, g0 + jnp.arange(0, ns, block, dtype=jnp.int32), side="right"
-    ).astype(jnp.int32)
     ts_last = jnp.searchsorted(
         m_ext, g0 + ns - 1, side="right").astype(jnp.int32)
-    ts_next = jnp.concatenate([ts[1:], ts_last[None] + 1])
-    starts = jnp.clip((ts // 128) * 128, 0, ns + 2 * H - W)
-    # left_ok: the first output slot's ancestor must not lie LEFT of the
-    # extended window (m at the window's first particle must not already
-    # exceed g0); right: the last needed ancestor must be found in-window
-    left_ok = m_ext[0] <= g0
-    fits_local = (jnp.max(ts_next - (ts // 128) * 128) < W) & (
-        ts_last < ns + 2 * H) & left_ok
+    fits_local = (m_ext[0] <= g0) & (ts_last < ns + 2 * H)
     fits = jax.lax.psum(fits_local.astype(jnp.int32), axis_name) == P_
 
     def fast(_):
-        if use_pallas:
-            from ..ops import pf_kernels
-
-            out8 = pf_kernels.expand_gather_call(
-                m_ext, parts_ext, starts, g0[None].astype(jnp.int32),
-                ns, block, W)
-        else:
-            anc = jnp.searchsorted(
-                m_ext, g0 + jnp.arange(ns, dtype=jnp.int32), side="right")
-            out8 = jnp.take(parts_ext, jnp.clip(anc, 0, ns + 2 * H - 1),
-                            axis=1)
-        return out8[0:6]
+        return expand_window(m_ext, parts_ext, g0, ns)
 
     def exact(_):
         # all-gather the bank (weight-collapse rarity): m carries the global
         # cummax already, so concatenation over shards == global m_cum.
         # Ancestors via scatter+cummax (``_expand_blocks``) — same ancestors
-        # as searchsorted side="right" by definition, ~15x cheaper on TPU
-        # (r05; the single-chip kernel's exact fallback made the same swap)
+        # as searchsorted side="right" by definition
         m_full = jax.lax.all_gather(m, axis_name, tiled=True)
-        p_full = jax.lax.all_gather(parts8, axis_name, axis=1, tiled=True)
+        p_full = jax.lax.all_gather(parts, axis_name, axis=1, tiled=True)
         anc = jax.lax.dynamic_slice(
             resampling._expand_blocks(m_full), (g0,), (ns,))
-        return jnp.take(p_full, anc, axis=1)[0:6]
+        return jnp.take(p_full, anc, axis=1)
 
     return jax.lax.cond(fits, fast, exact, None)
 
 
-def _wslack(block: int, limit: int) -> int:
-    """Window slack beyond the block width, capped by the extended array."""
-    from ..ops.pf_kernels import _WSLACK
-
-    return min(_WSLACK, max(0, limit - block))
+def expand_window(m_ext: jnp.ndarray, parts_ext: jnp.ndarray, g0,
+                  ns: int) -> jnp.ndarray:
+    """Columns of output slots [g0, g0 + ns) from a halo-extended window:
+    slot j belongs to the first window particle whose cumulative count
+    ``m_ext`` exceeds j (systematic ancestors are monotone)."""
+    anc = jnp.searchsorted(
+        m_ext, g0 + jnp.arange(ns, dtype=jnp.int32), side="right")
+    return jnp.take(parts_ext, jnp.clip(anc, 0, m_ext.shape[0] - 1), axis=1)
 
 
 def _clamped_halo(halo: int, ns: int) -> int:
@@ -188,8 +160,6 @@ def systematic_resample_gather_dist(
     key,
     pmesh: Mesh,
     halo: int = 4096,
-    use_pallas: bool = False,
-    block: int = 512,
 ) -> jnp.ndarray:
     """Mesh-level entry: shard_map ``systematic_gather_shard`` over the
     ``particle`` axis of ``pmesh``. Ancestors are bit-identical to the
@@ -199,15 +169,13 @@ def systematic_resample_gather_dist(
     ns = parts.shape[1] // pmesh.shape[PARTICLE_AXIS]
     body = functools.partial(
         systematic_gather_shard,
-        axis_name=PARTICLE_AXIS, halo=_clamped_halo(halo, ns),
-        use_pallas=use_pallas, block=min(block, ns))
+        axis_name=PARTICLE_AXIS, halo=_clamped_halo(halo, ns))
     spec_b = P(None, PARTICLE_AXIS)
     spec_w = P(PARTICLE_AXIS)
     fn = shard_map(
         body, mesh=pmesh,
         in_specs=(spec_b, spec_w, P()),
         out_specs=spec_b,
-        # pallas_call outputs carry no varying-mesh-axes annotation
         check_vma=False,
     )
     return fn(parts, weights, key)
@@ -219,8 +187,6 @@ def systematic_resample_gather_dist_batched(
     keys,                  # (B, ...) per-mission keys
     pmesh: Mesh,
     halo: int = 4096,
-    use_pallas: bool = False,
-    block: int = 512,
 ) -> jnp.ndarray:
     """Fleet form: one shard_map over BOTH mesh axes — missions shard over
     ``mission``, each mission's bank columns over ``particle`` — with the
@@ -243,8 +209,7 @@ def systematic_resample_gather_dist_batched(
         return jax.vmap(
             functools.partial(
                 systematic_gather_shard,
-                axis_name=PARTICLE_AXIS, halo=_clamped_halo(halo, ns),
-                use_pallas=use_pallas, block=min(block, ns))
+                axis_name=PARTICLE_AXIS, halo=_clamped_halo(halo, ns))
         )(p_b, w_b, k_b)
 
     fn = shard_map(

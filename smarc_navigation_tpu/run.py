@@ -6,7 +6,7 @@ mission, replays the requested filter stack as compiled XLA programs, and
 writes a run report + error dashboard.
 
     python -m smarc_navigation_tpu.run demo --duration 60 --out /tmp/demo
-    python -m smarc_navigation_tpu.run pf --particles 1000000 --pallas
+    python -m smarc_navigation_tpu.run pf --particles 1048576 --scheme systematic
 """
 
 from __future__ import annotations
@@ -101,8 +101,7 @@ def _pf(args):
     params = pf.make_params(cfg)
     run = jax.jit(
         lambda t: pf.run(t, params, cfg, n_particles=args.particles,
-                         scheme="systematic" if args.pallas else "residual",
-                         use_pallas=args.pallas)[1]["mean"]
+                         scheme=args.scheme)[1]["mean"]
     )
     mean = run(tl)
     jax.block_until_ready(mean)
@@ -214,7 +213,8 @@ def main(argv=None):
     f.add_argument("--duration", type=float, default=60.0)
     f.add_argument("--particles", type=int, default=1_048_576)
     f.add_argument("--seed", type=int, default=0)
-    f.add_argument("--pallas", action="store_true")
+    f.add_argument("--scheme", default="residual",
+                   choices=("residual", "systematic", "stratified", "multinomial"))
     f.set_defaults(fn=_pf)
 
     args = p.parse_args(argv)

@@ -88,7 +88,7 @@ def quat_from_rpy(rpy: jnp.ndarray) -> jnp.ndarray:
 
 def quat_from_rpy_np(rpy):
     """Numpy twin of ``quat_from_rpy`` for host-side preprocessing (timeline
-    builders must not touch the device — see ops/timeline.py r05 note)."""
+    builders stay on host — see the ops/timeline.py module note)."""
     import numpy as _np
 
     rpy = _np.asarray(rpy)

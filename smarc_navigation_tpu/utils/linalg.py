@@ -3,8 +3,8 @@
 Replaces the reference's boost::ublas LU helpers
 (``auv_ekf_localization/include/utils_matrices/utils_matrices.hpp:35-67``)
 with Cholesky-factored solves — better conditioned for the SPD innovation
-matrices the filters actually invert, and MXU/VPU friendly (no pivoting, no
-data-dependent control flow).
+matrices the filters actually invert, and free of pivoting and
+data-dependent control flow.
 """
 
 from __future__ import annotations
@@ -90,8 +90,8 @@ def inv_det_small3(S: jnp.ndarray):
 def inv_small(S: jnp.ndarray) -> jnp.ndarray:
     """Closed-form inverse of batched 2×2 / 3×3 SPD matrices (..., n, n).
 
-    Pure elementwise cofactor math — an order of magnitude cheaper on the
-    VPU than the factorization path for the filter's innovation matrices.
+    Pure elementwise cofactor math instead of a factorization for the
+    filter's innovation matrices.
     """
     n = S.shape[-1]
     if n == 2:

@@ -167,7 +167,6 @@ class OracleSLAM:
         self.n_active = 0
         self.mu_auv_odom = np.zeros(3)
         self.R = np.diag(cfg.r_diag)         # ekf_slam.cpp:74-97 diagonals
-        self.sensor = sensor
         # FLS extrinsic: tf_base_sensor_ (base <- fls, ekf_slam_core.cpp:32)
         # and its inverse tf_sensor_base_ (:33) whose rotation is h_comps.
         # R_fls_base_ (:203)
@@ -175,6 +174,14 @@ class OracleSLAM:
         self.t_bs = np.zeros(3) if t_base_fls is None else np.asarray(t_base_fls)
         self.r_sb = self.r_bs.T
         self.t_sb = -self.r_sb @ self.t_bs
+        self.use_sensor(sensor)
+        self.update_mode = update_mode
+
+    def use_sensor(self, sensor):
+        """Select the correspondence object (MBES or FLS) for the next DA
+        pass — the frame_id dispatch of ``ekf_slam.cpp:323``."""
+        cfg = self.cfg
+        self.sensor = sensor
         if sensor == "mbes":
             self.dim = 3
             self.Q = np.diag(cfg.q_mbes_diag)
@@ -187,7 +194,6 @@ class OracleSLAM:
             self.mh_dist = cfg.mhl_dist_fls
         # lambda_M = chi2(dim) quantile at delta (ekf_slam.cpp:100-103)
         self.lam = chi2.ppf(cfg.delta_outlier_reject, self.dim)
-        self.update_mode = update_mode
 
     def h_fls_m(self, pose, lm):
         """Expected measurement in FLS-frame metres: T_sensor_map·lm with
@@ -383,3 +389,36 @@ def run_oracle(cfg, timeline_np, update_mode="full", sensor="mbes",
         mus[k] = mu
         matched.append(m)
     return mus, np.stack(matched), o
+
+
+def rpy_from_quat(q):
+    """xyzw quaternion -> (roll, pitch, yaw), tf's euler_from_quaternion
+    convention (the inverse of ``rotmat`` above)."""
+    x, y, z, w = np.asarray(q, np.float64)
+    roll = np.arctan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    pitch = np.arcsin(np.clip(2 * (w * y - z * x), -1.0, 1.0))
+    yaw = np.arctan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    return np.array([roll, pitch, yaw])
+
+
+def timeline_arrays(tl, mission=None, sensor="mbes"):
+    """float64 numpy view of a SLAM Timeline for ``run_oracle``; with
+    ``mission`` set, lane ``mission`` of a batched (B, T, ...) timeline.
+    A 13-wide odom channel ([pos3, quat4, ...]) becomes the 6-wide
+    [pos3, rpy3] pose the filter consumes."""
+    pick = (lambda x: np.asarray(x)) if mission is None else (
+        lambda x: np.asarray(x)[mission])
+    od, ev = tl.channels["odom"], tl.events[sensor]
+    odom = pick(od.value).astype(np.float64)
+    if odom.shape[-1] >= 13:
+        odom = np.concatenate(
+            [odom[:, 0:3], np.stack([rpy_from_quat(q) for q in odom[:, 3:7]])],
+            axis=1)
+    det = pick(ev.value).astype(np.float64)
+    return {
+        "ticks": pick(tl.ticks).astype(np.float64),
+        "odom_value": odom,
+        "odom_valid": pick(od.valid),
+        "det_value": det[:, :, :2] if sensor == "fls" else det,
+        "det_mask": pick(ev.mask),
+    }

@@ -182,7 +182,7 @@ def test_event_channel_surfaces_dropped_detections():
     assert stats["mbes"]["dropped"] == 4
 
 
-def test_native_lib_rebuilds_on_source_hash_mismatch(tmp_path):
+def test_native_lib_rebuilds_on_source_hash_mismatch(tmp_path, monkeypatch):
     """A cached .so is only trusted when its recorded source hash matches —
     never on mtime (fresh checkouts share mtimes)."""
     from smarc_navigation_tpu import native
@@ -193,9 +193,11 @@ def test_native_lib_rebuilds_on_source_hash_mismatch(tmp_path):
     assert os.path.exists(native._STAMP)
     with open(native._STAMP) as f:
         assert f.read().strip() == native._src_hash()
-    # stale/foreign stamp -> cached lib is not trusted
-    with open(native._STAMP, "w") as f:
-        f.write("deadbeef")
+    # stale/foreign stamp -> cached lib is not trusted (on a private copy:
+    # the shared stamp stays valid for concurrent test workers)
+    stamp = tmp_path / "libsmarcnav.so.srchash"
+    stamp.write_text("deadbeef")
+    monkeypatch.setattr(native, "_STAMP", str(stamp))
     assert not native._cached_lib_current(native._src_hash())
 
 

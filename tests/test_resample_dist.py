@@ -80,20 +80,12 @@ def test_dist_resample_fallback_on_tiny_halo():
 
 
 def test_expand_gather_offset_window_matches():
-    """The Pallas expansion kernel with a nonzero output offset over a
-    halo-extended window (the shard-local view the distributed resample
-    hands it) matches the ancestors of the single-device sampler.
-
-    Interpret-mode Pallas deadlocks INSIDE shard_map on the CPU backend, so
-    this drives the kernel directly with shard-s arrays built in numpy —
-    the same inputs ``systematic_gather_shard`` constructs; the collective
-    assembly of those inputs is covered by the XLA-path tests above, and
-    the pallas+shard_map composition runs on the real chip (bench)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from smarc_navigation_tpu.ops import pf_kernels
-
+    """The shard-local expansion (``resample_dist.expand_window``) with a
+    nonzero output offset over a halo-extended window — exactly the arrays
+    ``systematic_gather_shard`` hands it, built here in numpy per shard —
+    matches the ancestors of the single-device sampler."""
     n = 1 << 14
-    P_, H, block = 4, 1024, 512
+    P_, H = 4, 1024
     ns = n // P_
     parts = _bank(n, seed=5)
     w = _weights(n, "uniform", seed=5)
@@ -103,64 +95,26 @@ def test_expand_gather_offset_window_matches():
     anc = resampling.systematic_resample(key, w)
     ref = np.asarray(jnp.take(parts, anc, axis=1))
 
-    parts8 = np.concatenate(
-        [np.asarray(parts), np.zeros((2, n), np.float32)], axis=0)
+    parts_np = np.asarray(parts)
     for s in range(P_):
         lo, hi = s * ns, (s + 1) * ns
         xlo, xhi = max(0, lo - H), min(n, hi + H)
         # build extended window exactly as the shard body would: zero-fill
         # halos that fall off the bank (shard 0 left, last shard right=n)
         m_ext = np.zeros(ns + 2 * H, np.int32)
-        p_ext = np.zeros((8, ns + 2 * H), np.float32)
+        p_ext = np.zeros((6, ns + 2 * H), np.float32)
         m_ext[H - (lo - xlo):H] = m_cum[xlo:lo]
         m_ext[H:H + ns] = m_cum[lo:hi]
         m_ext[H + ns:H + ns + (xhi - hi)] = m_cum[hi:xhi]
         if s == P_ - 1:
             m_ext[H + ns:] = n
-        p_ext[:, H - (lo - xlo):H] = parts8[:, xlo:lo]
-        p_ext[:, H:H + ns] = parts8[:, lo:hi]
-        p_ext[:, H + ns:H + ns + (xhi - hi)] = parts8[:, hi:xhi]
+        p_ext[:, H - (lo - xlo):H] = parts_np[:, xlo:lo]
+        p_ext[:, H:H + ns] = parts_np[:, lo:hi]
+        p_ext[:, H + ns:H + ns + (xhi - hi)] = parts_np[:, hi:xhi]
 
-        W = block + 384
-        ts = np.searchsorted(m_ext, lo + np.arange(0, ns, block), side="right")
-        starts = np.clip((ts // 128) * 128, 0, ns + 2 * H - W).astype(np.int32)
-        with pltpu.force_tpu_interpret_mode():
-            out8 = pf_kernels.expand_gather_call(
-                jnp.asarray(m_ext), jnp.asarray(p_ext), jnp.asarray(starts),
-                jnp.asarray([lo], jnp.int32), ns, block, W)
-        np.testing.assert_array_equal(np.asarray(out8)[0:6], ref[:, lo:hi])
-
-
-def test_tpu_dist_check_artifact():
-    """Pin the committed on-chip pallas+shard_map artifact (round-3 verdict
-    #2): CPU interpret-mode Pallas deadlocks inside shard_map, so the
-    execution evidence for the composition a pod would run lives in
-    ``data/dist_check_tpu.json``, generated on the real chip by
-    ``scripts/check_dist_tpu.py``. This test fails on a bad regeneration."""
-    import json
-    import os
-
-    path = os.path.join(os.path.dirname(__file__), "..", "data",
-                        "dist_check_tpu.json")
-    assert os.path.exists(path), "run scripts/check_dist_tpu.py on the TPU"
-    with open(path) as f:
-        art = json.load(f)
-    assert "TPU" in art["device"], art["device"]
-    assert art["dist_resample_pallas=False_bitwise"] is True
-    assert art["dist_resample_pallas=True_bitwise"] is True
-    assert art["n"] >= 1 << 17
-    pfr = art["pf_run_fast_pmesh"]
-    assert pfr["finite"] is True
-    assert pfr["gps_updates"] >= 3
-    # r05 (VERDICT r04 #3): the sharded fast bank is BITWISE the unsharded
-    # one — weights, ancestors and the hardware-PRNG jitter stream are all
-    # shard-count-invariant now
-    assert pfr["bank_bitwise"] is True
-    assert pfr["mean_pos_maxdiff_m"] < 1e-5
-    # the multi-shard jitter mechanism (global-chunk-index seed offsets)
-    # decomposes bitwise on the hardware PRNG
-    assert art["jitter_seed_off_decomposition_P2_bitwise"] is True
-    assert art["jitter_seed_off_decomposition_P4_bitwise"] is True
+        out = resample_dist.expand_window(
+            jnp.asarray(m_ext), jnp.asarray(p_ext), jnp.int32(lo), ns)
+        np.testing.assert_array_equal(np.asarray(out), ref[:, lo:hi])
 
 
 def test_tree_sum_shard_bitwise_on_mesh():

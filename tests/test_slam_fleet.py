@@ -1,4 +1,7 @@
-"""SLAM fleet path with the in-lanes JV kernel vs the per-mission dense path."""
+"""SLAM fleet path (``run_fleet``: the per-mission filter vmapped over a
+batched timeline) against the independent f64 oracle, mission by mission:
+identical association decisions and landmark counts, pose tracks within
+f32 filter tolerance. Sharded fleets against unsharded ones."""
 
 import dataclasses
 
@@ -6,25 +9,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
+from scipy.optimize import linear_sum_assignment
 
 from smarc_navigation_tpu.configs import EKFSlamConfig
 from smarc_navigation_tpu.io import sim
 from smarc_navigation_tpu.models import ekf_slam as slam
 from smarc_navigation_tpu.ops import assignment
-from smarc_navigation_tpu.ops.slam_da_kernels import hungarian_lanes
 from smarc_navigation_tpu.ops.timeline import build_timeline
 from smarc_navigation_tpu.parallel import fleet
+from smarc_navigation_tpu.parallel import mesh as mesh_lib
 from smarc_navigation_tpu.utils.geometry import quat_from_rpy
-
-
-@pytest.fixture(autouse=True)
-def interpret_pallas():
-    with pltpu.force_tpu_interpret_mode():
-        yield
+from tests.oracles import ekf_slam_oracle as oracle
 
 
 def test_hungarian_lanes_matches_dense_jv():
+    """The fleet's batched assignment (``assignment.hungarian`` vmapped over
+    missions, as inside ``run_fleet``) reaches scipy's optimum per mission
+    on SLAM-shaped tables: sparse gated costs + a candidate diagonal."""
     rng = np.random.default_rng(3)
     B, R, C = 4, 40, 6
     cost = np.full((B, R, C), 1e6, np.float32)
@@ -35,12 +36,50 @@ def test_hungarian_lanes_matches_dense_jv():
         cost[b, rr, cc] = rng.uniform(0, 10, k).astype(np.float32)
         for c in range(C):
             cost[b, R - C + c, c] = 1.0
-    out = np.asarray(hungarian_lanes(jnp.asarray(cost)))
+    out = np.asarray(jax.vmap(assignment.hungarian)(jnp.asarray(cost)))
     for b in range(B):
-        ref = np.asarray(assignment.hungarian(jnp.asarray(cost[b])))
+        rows, cols = linear_sum_assignment(cost[b].astype(np.float64))
         co = cost[b][out[b], np.arange(C)].sum()
-        cr = cost[b][ref, np.arange(C)].sum()
-        assert np.isclose(co, cr), (b, out[b], ref)
+        assert np.isclose(co, cost[b][rows, cols].sum()), (b, out[b])
+        assert len(set(out[b].tolist())) == C
+
+
+def assert_fleet_matches_oracle(cfg, batched, out_f, final_f, update_mode,
+                                sensors=("mbes",), oracle_kw=None, atol=5e-2):
+    """Each mission of a fleet run vs the f64 oracle: identical association
+    decisions on every sensor pass, identical landmark counts, pose track
+    within ``atol`` metres. Returns the final oracle of each mission."""
+    B = batched.ticks.shape[0]
+    oracles = []
+    for b in range(B):
+        arrs = {s: oracle.timeline_arrays(batched, b, s) for s in sensors}
+        o = oracle.OracleSLAM(cfg, update_mode, sensor=sensors[0],
+                              **(oracle_kw or {}))
+        a0 = arrs[sensors[0]]
+        T = len(a0["ticks"])
+        mus = np.zeros((T, 6))
+        matched = {s: [] for s in sensors}
+        for k in range(T):
+            if a0["odom_valid"][k]:
+                o.predict(a0["odom_value"][k][0:6])
+            for s in sensors:
+                z, m = arrs[s]["det_value"][k], arrs[s]["det_mask"][k]
+                if a0["odom_valid"][k] and np.any(m):
+                    o.use_sensor(s)
+                    matched[s].append(o.da_update(z, m))
+                else:
+                    matched[s].append(np.full(len(z), -1))
+            mus[k] = o.mu[0:6]
+        assert int(final_f.n_active[b]) == o.n_active, b
+        for s in sensors:
+            got = np.asarray(out_f["matched_" + s][:, b])
+            agree = (got == np.stack(matched[s])).mean()
+            assert agree == 1.0, f"mission {b} {s}: match agreement {agree}"
+        err = np.linalg.norm(np.asarray(out_f["mu"][:, b, 0:3]) - mus[:, 0:3],
+                             axis=-1)
+        assert err.max() < atol, (b, err.max())
+        oracles.append(o)
+    return oracles
 
 
 def _slam_tls(cfg, duration, seeds):
@@ -66,6 +105,14 @@ def _slam_tls(cfg, duration, seeds):
     return tls
 
 
+def _fls_tls(cfg, duration, seeds):
+    """FLS missions of the bench's FLS fleet workload (io.workloads)."""
+    from smarc_navigation_tpu.io import workloads
+
+    return [workloads.fls_mission_timeline(cfg, duration, s, n_rocks=12)
+            for s in seeds]
+
+
 def test_run_fleet_matches_vmapped_run():
     cfg = dataclasses.replace(
         EKFSlamConfig(), max_landmarks=16, max_obs=4,
@@ -75,26 +122,15 @@ def test_run_fleet_matches_vmapped_run():
     batched = fleet.batch_timelines(tls)
 
     final_f, out_f = slam.run_fleet(batched, params, cfg, update_mode="full")
-
-    for b, tl in enumerate(tls):
-        final_d, out_d = slam.run(tl, params, cfg, update_mode="full")
-        # componentwise in-lanes correspondence + the sequential-update
-        # kernel reassociate f32 ops vs the einsum/dense path; tracks agree
-        # to ~5e-3 over 60 ticks while associations match exactly below
-        np.testing.assert_allclose(
-            np.asarray(out_f["mu"][:, b]), np.asarray(out_d["mu"]),
-            atol=1e-2)
-        # same landmark bank evolution and association decisions
-        assert int(final_f.n_active[b]) == int(final_d.n_active)
-        mf = np.asarray(out_f["matched_mbes"][:, b])
-        md = np.asarray(out_d["matched_mbes"])
-        agree = (mf == md).mean()
-        assert agree == 1.0, f"mission {b}: match agreement {agree}"
+    assert int(np.asarray(final_f.n_active).sum()) > 0
+    assert_fleet_matches_oracle(cfg, batched, out_f, final_f, "full")
 
 
 def test_raycast_fleet_kernel_matches_dense():
-    """Closed-loop raycast fleet through the DA kernel vs the vmapped dense
-    step (interpret mode)."""
+    """Closed-loop raycast fleet sharded over the mesh's mission axis vs the
+    same fleet unsharded: identical landmark counts, poses and covariances
+    within f32 reassociation (the per-shard batch width changes how XLA
+    vectorizes the render's reductions)."""
     from smarc_navigation_tpu.ops import raycast
     from smarc_navigation_tpu.parallel.fleet import run_raycast_fleet
 
@@ -103,7 +139,7 @@ def test_raycast_fleet_kernel_matches_dense():
         mhl_dist_mbes=1.0, q_mbes_diag=(0.1,) * 3, r_diag=(1e-3,) * 6)
     params = slam.make_params(cfg)
     rng = np.random.default_rng(0)
-    B, T = 2, 40
+    B, T = 4, 40
     m = sim.simulate(sim.MissionSpec(duration_s=10.0, seed=1))
     ticks = np.arange(T) / cfg.system_freq
     gt = jnp.asarray(np.tile(m.gt_at(ticks).astype(np.float32), (B, 1, 1)))
@@ -112,18 +148,23 @@ def test_raycast_fleet_kernel_matches_dense():
     lmm = jnp.ones((B, 8), bool)
     spec = raycast.MBESSpec(num_beams=32, floor_z=-16.0, rock_radius=1.2,
                             swath_rad=2.4, max_range=40.0)
+    dmesh = mesh_lib.make_mesh(mission=2, particle=4)
 
-    fin_k, (mu_k, na_k) = run_raycast_fleet(gt, lms, lmm, cfg, params, spec,
-                                            use_da_kernel=True)
-    fin_d, (mu_d, na_d) = run_raycast_fleet(gt, lms, lmm, cfg, params, spec,
-                                            use_da_kernel=False)
-    np.testing.assert_allclose(np.asarray(mu_k), np.asarray(mu_d), atol=1e-2)
-    np.testing.assert_array_equal(np.asarray(na_k), np.asarray(na_d))
+    fin_s, (mu_s, na_s) = jax.jit(lambda g, l, m_: run_raycast_fleet(
+        g, l, m_, cfg, params, spec, device_mesh=dmesh))(gt, lms, lmm)
+    fin_u, (mu_u, na_u) = jax.jit(lambda g, l, m_: run_raycast_fleet(
+        g, l, m_, cfg, params, spec))(gt, lms, lmm)
+    assert int(np.asarray(na_u)[:, -1].sum()) > 0
+    np.testing.assert_array_equal(np.asarray(na_s), np.asarray(na_u))
+    np.testing.assert_allclose(np.asarray(mu_s), np.asarray(mu_u),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(fin_s.Sigma),
+                               np.asarray(fin_u.Sigma), rtol=1e-4, atol=1e-6)
 
 
 def test_run_fleet_fls_pass_matches_vmapped_run():
-    """FLS fleets run the whole-DA lanes kernel (dim=2 factory, incl. the
-    sensor-extrinsic chain); results must match the per-mission dense path."""
+    """FLS fleets (dim=2 pixel model, incl. the sensor-extrinsic chain)
+    against the f64 oracle with the same mount."""
     from smarc_navigation_tpu.utils.geometry import Transform, rotmat_from_rpy
 
     cfg = dataclasses.replace(
@@ -157,22 +198,18 @@ def test_run_fleet_fls_pass_matches_vmapped_run():
     )
     batched = fleet.batch_timelines([tl, tl])
     final_f, out_f = slam.run_fleet(batched, params, cfg, update_mode="full")
-    final_d, out_d = slam.run(tl, params, cfg, update_mode="full")
-    for b in range(2):
-        np.testing.assert_allclose(
-            np.asarray(out_f["mu"][:, b]), np.asarray(out_d["mu"]), atol=1e-2)
-        assert int(final_f.n_active[b]) == int(final_d.n_active)
-        mf = np.asarray(out_f["matched_fls"][:, b])
-        md = np.asarray(out_d["matched_fls"])
-        assert (mf == md).mean() == 1.0
+    assert int(final_f.n_active[0]) == 2
+    assert_fleet_matches_oracle(
+        cfg, batched, out_f, final_f, "full", sensors=("fls",),
+        oracle_kw={"r_base_fls": np.asarray(tf_bf.rot, np.float64),
+                   "t_base_fls": np.asarray(tf_bf.trans, np.float64)})
 
 
 def test_run_fleet_mixed_sensors_matches_vmapped_run():
     """Both sensors in ONE mission (MBES pass then FLS pass per tick —
     ``ekf_slam.cpp:323``'s frame_id dispatch, both passes per tick when both
-    topics delivered): the fleet path must match the per-mission dense path,
-    including the band carry threading through both passes and the in-kernel
-    predict riding only the first."""
+    topics delivered): the fleet path must match the f64 oracle running both
+    correspondence objects on one state, predict once per tick."""
     cfg = dataclasses.replace(
         EKFSlamConfig(), max_landmarks=8, max_obs=4,
         mhl_dist_mbes=1.0, q_mbes_diag=(0.1,) * 3,
@@ -214,22 +251,14 @@ def test_run_fleet_mixed_sensors_matches_vmapped_run():
     )
     batched = fleet.batch_timelines([tl, tl])
     final_f, out_f = slam.run_fleet(batched, params, cfg, update_mode="full")
-    final_d, out_d = slam.run(tl, params, cfg, update_mode="full")
-    assert int(final_d.n_active) == 4  # both sensors really mapped things
-    for b in range(2):
-        np.testing.assert_allclose(
-            np.asarray(out_f["mu"][:, b]), np.asarray(out_d["mu"]), atol=1e-2)
-        assert int(final_f.n_active[b]) == int(final_d.n_active)
-        for key in ("matched_mbes", "matched_fls"):
-            mf = np.asarray(out_f[key][:, b])
-            md = np.asarray(out_d[key])
-            assert (mf == md).mean() == 1.0, (key, b)
+    assert int(final_f.n_active[0]) == 4  # both sensors really mapped things
+    assert_fleet_matches_oracle(cfg, batched, out_f, final_f, "full",
+                                sensors=("mbes", "fls"))
 
 
 def test_run_fleet_nondefault_update_mode_routes_per_mission():
-    """update_mode other than auto/full must be honored (vmapped per-mission
-    path), not silently replaced by the fleet kernel's full-update
-    semantics."""
+    """update_mode="marginal" (the reference's 9x9 writeback) is honored by
+    the fleet path: every mission matches the marginal-mode oracle."""
     cfg = dataclasses.replace(
         EKFSlamConfig(), max_landmarks=8, max_obs=4,
         mhl_dist_mbes=1.0, q_mbes_diag=(0.1,) * 3, r_diag=(1e-3,) * 6)
@@ -238,16 +267,12 @@ def test_run_fleet_nondefault_update_mode_routes_per_mission():
     batched = fleet.batch_timelines(tls)
     final_f, out_f = slam.run_fleet(batched, params, cfg,
                                     update_mode="marginal")
-    final_d, out_d = slam.run(tls[0], params, cfg, update_mode="marginal")
-    np.testing.assert_allclose(
-        np.asarray(out_f["mu"][:, 0]), np.asarray(out_d["mu"]), atol=1e-5)
-    assert int(final_f.n_active[0]) == int(final_d.n_active)
+    assert_fleet_matches_oracle(cfg, batched, out_f, final_f, "marginal")
 
 
 def test_run_fleet_capacity_denial_matches_dense():
-    """Bank saturation through the fleet path: the DA kernel's in-lanes
-    add-denial bookkeeping (cum_can_add against n_active) must deny the
-    same adds as the dense per-mission path once the L-slot bank fills."""
+    """Bank saturation through the fleet path: once the L-slot bank fills,
+    further adds are denied exactly where the oracle denies them."""
     cfg = dataclasses.replace(
         EKFSlamConfig(), max_landmarks=3, max_obs=4,
         mhl_dist_mbes=1.0, q_mbes_diag=(0.1,) * 3, r_diag=(1e-3,) * 6)
@@ -277,37 +302,42 @@ def test_run_fleet_capacity_denial_matches_dense():
                          cfg.max_obs)})
     batched = fleet.batch_timelines([tl, tl])
     final_f, out_f = slam.run_fleet(batched, params, cfg, update_mode="full")
-    final_d, out_d = slam.run(tl, params, cfg, update_mode="full")
-    assert int(final_d.n_active) == cfg.max_landmarks  # really saturated
-    for b in range(2):
-        assert int(final_f.n_active[b]) == int(final_d.n_active)
-        mf = np.asarray(out_f["matched_mbes"][:, b])
-        md = np.asarray(out_d["matched_mbes"])
-        assert (mf == md).mean() == 1.0, f"mission {b}"
-        np.testing.assert_allclose(
-            np.asarray(out_f["mu"][:, b]), np.asarray(out_d["mu"]),
-            atol=1e-2)
+    assert int(final_f.n_active[0]) == cfg.max_landmarks  # really saturated
+    assert_fleet_matches_oracle(cfg, batched, out_f, final_f, "full")
 
 
-def test_tpu_slam_shard_artifact():
-    """Pin the committed on-chip mission-sharded kernel-fleet artifact
-    (round-3 verdict #4): interpret-mode Pallas hangs inside shard_map on
-    the CPU backend (same failure the distributed resample hit in round 3,
-    reproduced for the DA/update kernels in round 4), so the execution
-    evidence for ``slam.run_fleet(device_mesh=...)`` and the sharded
-    raycast kernel fleet lives in ``data/slam_shard_tpu.json``, generated
-    on the real chip by ``scripts/check_slam_shard_tpu.py``."""
-    import json
-    import os
+def test_slam_fleet_sharded_bitwise():
+    """``run_fleet(device_mesh=...)``: missions sharded over the mesh's
+    mission axis (one-device program per device) give bitwise the
+    unsharded fleet's outputs and states, themselves sharded over the
+    mission devices."""
+    cfg = dataclasses.replace(
+        EKFSlamConfig(), max_landmarks=8, max_obs=4,
+        mhl_dist_mbes=1.0, q_mbes_diag=(0.1,) * 3, r_diag=(1e-3,) * 6)
+    params = slam.make_params(cfg)
+    batched = fleet.batch_timelines(_slam_tls(cfg, 3.0, [1, 2, 3, 4]))
+    dmesh = mesh_lib.make_mesh(mission=2, particle=4)
+    fin_s, out_s = slam.run_fleet(batched, params, cfg, device_mesh=dmesh)
+    fin_u, out_u = jax.jit(lambda t: slam.run_fleet(t, params, cfg))(batched)
+    assert int(np.asarray(fin_u.n_active).sum()) > 0
+    assert len(fin_s.mu.sharding.device_set) == 2
+    assert len(out_s["mu"].sharding.device_set) == 2
+    assert out_s["mu"].shape == out_u["mu"].shape
+    for a, b in zip(jax.tree_util.tree_leaves((fin_s, out_s)),
+                    jax.tree_util.tree_leaves((fin_u, out_u))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-    path = os.path.join(os.path.dirname(__file__), "..", "data",
-                        "slam_shard_tpu.json")
-    assert os.path.exists(path), "run scripts/check_slam_shard_tpu.py on TPU"
-    with open(path) as f:
-        art = json.load(f)
-    assert "TPU" in art["device"], art["device"]
-    rf = art["slam_run_fleet_sharded"]
-    assert rf["bitwise_mu"] and rf["bitwise_sigma"] and rf["bitwise_outputs"]
-    assert rf["total_landmarks"] > 0, "fleet built no landmarks — dead run?"
-    rc = art["raycast_fleet_sharded"]
-    assert rc["bitwise"] and rc["total_landmarks"] > 0
+
+def test_slam_fleet_sharded_refuses_tracing():
+    """The mission-sharded fleet dispatches one program per device, which a
+    trace cannot hold: under ``jit`` it says so instead of compiling an
+    SPMD program whose rounding differs from one device's."""
+    cfg = dataclasses.replace(EKFSlamConfig(), max_landmarks=4, max_obs=2)
+    params = slam.make_params(cfg)
+    batched = fleet.batch_timelines(_slam_tls(cfg, 1.0, [1, 2]))
+    dmesh = mesh_lib.make_mesh(mission=2, particle=4)
+    with pytest.raises(TypeError, match="outside jit"):
+        jax.jit(lambda t: slam.run_fleet(t, params, cfg, device_mesh=dmesh))(batched)
+    with pytest.raises(ValueError, match="not divisible"):
+        slam.run_fleet(fleet.batch_timelines(_slam_tls(cfg, 1.0, [1, 2, 3])),
+                       params, cfg, device_mesh=dmesh)
